@@ -1,8 +1,8 @@
 """Octane BE2-CCSD with density matching (ref example/molbe_octane.py).
 
 The flagship molecular benchmark (BASELINE.md): E_corr = -0.5549 Ha.
-Runtime: minutes on CPU; the fragment solves batch onto the TPU when
-JAX_PLATFORMS is left at its default.
+Runtime: minutes on CPU; BE construction and the fragment solves run on
+the GPU when JAX_PLATFORMS is left at its default.
 """
 
 from quemb_tpu import BE, fragmentate

@@ -8,7 +8,7 @@ Design: shells are grouped into *classes* of identical angular momenta and
 contraction lengths; all pairs/quartets of a class combination are evaluated
 as batched numpy tensor ops (one vectorized sweep per class combination
 instead of per-integral Python loops).  The same per-class static-shape
-structure is what allows a later jit/TPU offload of the hot ERI classes.
+structure is what allows a later jit/device offload of the hot ERI classes.
 """
 
 from __future__ import annotations

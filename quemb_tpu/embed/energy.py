@@ -3,7 +3,7 @@
 Dense-tensor reformulation of the reference ``molbe/helper.py:get_frag_energy``
 and ``molbe/pfrag.py:update_ebe_hf``: the packed lower-triangular ERI loops of
 the reference reduce, for a dense chemist-notation ERI, to plain contractions
-over the first ``n_frag`` rows — three einsums on the MXU.
+over the first ``n_frag`` rows — three einsums.
 """
 
 from __future__ import annotations

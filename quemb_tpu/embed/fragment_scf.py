@@ -4,7 +4,7 @@ Replaces the reference's fake-``Mole`` PySCF RHF per fragment
 (``molbe/helper.py:get_scfObj``).  The Schmidt basis is orthonormal, so the
 Roothaan step is a plain ``eigh``; DIIS runs with fixed-size buffers inside a
 ``lax.while_loop`` so the whole SCF jits and vmaps across a bucket of
-same-shaped fragments (this is the TPU replacement for the per-fragment
+same-shaped fragments (this is the device replacement for the per-fragment
 process pool of ``molbe/be_parallel.py``).
 """
 
@@ -29,8 +29,8 @@ def _eigh_deflated(F):
     """eigh of a Fock matrix that may carry bucket-merge pad sentinels.
 
     Merged-bucket padding (solvers.dispatch._PAD_SHIFT) puts exactly
-    decoupled rows with diagonal +-1e6 on the Fock.  The TPU backend eigh
-    has ~1e-7 RELATIVE accuracy, so those sentinels inflate ``||F||`` by
+    decoupled rows with diagonal +-1e6 on the Fock.  A backend eigh of
+    ~1e-7 RELATIVE accuracy (see ops/linalg.py) would let those sentinels inflate ``||F||`` by
     ~1e5x and turn the physical block's eigenvectors to mush (~0.1
     absolute error that the Jacobi refinement's gap-suppression then
     refuses to rotate away).  Because the pad rows are exactly decoupled,
@@ -72,8 +72,8 @@ def _diis_solve(err_flat, fock_flat, nvalid):
     Bfull = Bfull.at[m, :m].set(jnp.where(valid, -1.0, 0.0))
     Bfull = Bfull.at[:m, m].set(jnp.where(valid, -1.0, 0.0))
     rhs = jnp.zeros(m + 1).at[m].set(-1.0)
-    # solve via eigendecomposition: the TPU backend lacks f64 LU, and Bfull
-    # is symmetric anyway
+    # solve via eigendecomposition: Bfull is symmetric, and this keeps
+    # the loop body free of LU custom calls
     w, V = _eigh(Bfull)
     w_safe = jnp.where(jnp.abs(w) < 1e-14, jnp.inf, w)
     c = (V @ ((V.T @ rhs) / w_safe))[:m]

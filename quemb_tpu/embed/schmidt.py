@@ -1,6 +1,6 @@
 """Schmidt decomposition of the HF 1-RDM into fragment + bath orbitals.
 
-TPU-first form of the reference ``molbe/pfrag.py:schmidt_decomposition``:
+Batched form of the reference ``molbe/pfrag.py:schmidt_decomposition``:
 an eigendecomposition of the environment block of the localized-orbital 1-RDM.
 The bath count is data dependent (eigenvalues in (thr, 1-thr)), so the eigh
 runs batched in jax and the thresholding/column selection happens host-side

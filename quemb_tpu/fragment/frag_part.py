@@ -3,7 +3,7 @@
 Field names and semantics mirror the reference contract
 (``molbe/autofrag.py:38-206 FragPart``) so that downstream embedding code and
 tests can speak the same language.  Implementation is a plain dataclass over
-Python lists; the padded/stacked array form used on TPU is derived from this
+Python lists; the padded/stacked array form used on the device is derived from this
 in :mod:`quemb_tpu.embed.fragments`.
 """
 

@@ -1,4 +1,4 @@
-"""Periodic bootstrap embedding (kbe): TPU-native replacement for the
+"""Periodic bootstrap embedding (kbe): device-batched replacement for the
 reference ``quemb.kbe`` package (reference kbe/__init__.py:1-4 exports
 BE and fragmentate)."""
 

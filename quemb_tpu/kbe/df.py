@@ -554,7 +554,7 @@ class KGDF:
         """Real embedding-basis ERI (ij|kl) for supercell orbitals.
 
         TA_k: [nk, nao, neo] per-k coefficients of real supercell embedding
-        orbitals (TPU-native analog of libdmet ``get_emb_eri_fast_gdf``,
+        orbitals (device analog of libdmet ``get_emb_eri_fast_gdf``,
         reference kbe/pbe.py:530).  With normalized Bloch AOs and the
         per-cell j3c convention:
 

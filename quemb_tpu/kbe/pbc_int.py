@@ -17,7 +17,7 @@ an erf/erfc range separation at splitting parameter ``omega``:
 The short-range part reuses the molecular McMurchie-Davidson machinery with
 erfc-attenuated Boys functions; the long-range part needs only analytic
 Gaussian Fourier transforms (pair FTs below) and is a dense batched
-contraction (MXU-friendly).
+contraction.
 """
 
 from __future__ import annotations

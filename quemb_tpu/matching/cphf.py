@@ -3,7 +3,7 @@
 Reimplements the reference's ``shared/external/cphf_utils.py`` (batched CPHF
 kernel) and ``shared/external/optqn.py:250-491`` (block Jacobian of the
 matching conditions).  The CPHF solve for all matching potentials at once is
-one batched dense linear solve - ideal MXU work.
+one batched dense linear solve.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ def cphf_kernel_batch(C, moe, eri, no, vs):
     A = A - jnp.diag(denom)
     B0s = jnp.einsum("xpq,pi,qa->iax", jnp.asarray(np.array(vs)), Co, Cv)
     B0s = B0s.reshape(no * nv, len(vs))
-    # host solve: A is non-symmetric and small; the TPU backend lacks f64 LU
+    # host solve: A is non-symmetric and small
     us = np.linalg.solve(np.asarray(A), np.asarray(B0s)).T
     return us
 

@@ -2,8 +2,8 @@
 
 The reference's native layer is its C++/OpenMP sparse-DF extension
 (_cpp/eri_sparse_DF.cpp); this package holds the equivalent host-side
-kernels of the TPU build (the device side is XLA/Pallas).  Compilation
-is lazy and cached; every consumer has a pure-Python fallback.
+kernels (the device side is XLA).  Compilation is lazy and cached; every
+consumer has a pure-Python fallback.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from pathlib import Path
 _HERE = Path(__file__).parent
 _LIB = None
 _TRIED = False
+#: why the last build or load failed (None after a success)
+BUILD_ERROR: str | None = None
 
 
 def _build() -> Path | None:
@@ -26,22 +28,34 @@ def _build() -> Path | None:
         so.stat().st_mtime >= s.stat().st_mtime for s in srcs
     ):
         return so
-    cxx = os.environ.get("CXX", "g++")
+    global BUILD_ERROR
+    # $CXX first, then the system compilers: a toolchain named by $CXX
+    # may lack OpenMP (its libgomp), which the kernels need.
+    compilers = list(dict.fromkeys(
+        c for c in (os.environ.get("CXX"), "g++", "c++") if c
+    ))
     # Compile to a per-process temp name and os.rename() it into place:
     # rename is atomic, so concurrent processes can never load a
     # half-written library (they either see the old complete one or the
     # new complete one).
     tmp = _HERE / f"_native.{os.getpid()}.tmp.so"
-    cmd = [cxx, "-O3", "-march=native", "-fopenmp", "-std=c++17",
-           "-fPIC", "-shared",
-           *[str(s) for s in srcs], "-o", str(tmp), "-lm"]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=300)
-        os.rename(tmp, so)
-        return so
-    except Exception:
+    errors = []
+    for cxx in compilers:
+        cmd = [cxx, "-O3", "-march=native", "-fopenmp", "-std=c++17",
+               "-fPIC", "-shared",
+               *[str(s) for s in srcs], "-o", str(tmp), "-lm"]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True,
+                           timeout=300, text=True)
+            os.rename(tmp, so)
+            return so
+        except subprocess.CalledProcessError as exc:
+            errors.append(f"{cxx}: {exc.stderr.strip()[-300:]}")
+        except Exception as exc:
+            errors.append(f"{cxx}: {exc!r}")
         tmp.unlink(missing_ok=True)
-        return None
+    BUILD_ERROR = "; ".join(errors)
+    return None
 
 
 def _validate(lib) -> bool:
@@ -84,14 +98,15 @@ def get_lib():
     (the .so is never shipped in-tree) and validated against the
     pure-Python fallback before being trusted.
     """
-    global _LIB, _TRIED
+    global _LIB, _TRIED, BUILD_ERROR
     if _LIB is None and not _TRIED:
         _TRIED = True
         so = _build()
         if so is not None:
             try:
                 lib = ctypes.CDLL(str(so))
-            except OSError:
+            except OSError as exc:
+                BUILD_ERROR = f"load: {exc}"
                 return None
             lib.boys_batch.argtypes = [
                 ctypes.c_int,
@@ -102,4 +117,7 @@ def get_lib():
             lib.boys_batch.restype = None
             if _validate(lib):
                 _LIB = lib
+                BUILD_ERROR = None
+            else:
+                BUILD_ERROR = "boys_batch failed validation"
     return _LIB

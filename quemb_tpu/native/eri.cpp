@@ -3,7 +3,7 @@
  * Native analog of the reference's compiled integral layer: where
  * troyvvgroup/quemb reaches PySCF's C kernels + its own
  * _cpp/eri_sparse_DF.cpp for the heavy host-side integral work, this
- * engine generates the 4c/3c/2c Coulomb integrals for the TPU build's
+ * engine generates the 4c/3c/2c Coulomb integrals for this package's
  * ingestion stage.  Semantics mirror quemb_tpu/chem/integrals.py exactly
  * (cartesian component order, contraction normalization, 8-fold symmetry
  * scatter, Schwarz screening); the Python engine remains as the

@@ -1,8 +1,8 @@
 """Density-fitted integral machinery (reference L4: eri_onthefly.py,
 eri_sparse_DF.py + _cpp/eri_sparse_DF.cpp).
 
-The TPU-native formulation: the 3-center factor ``B[P, mu, nu]`` lives in
-HBM; each fragment's (ij|kl) is two MXU matmul quarter-transforms
+The device formulation: the 3-center factor ``B[P, mu, nu]`` lives in
+device memory; each fragment's (ij|kl) is two GEMM quarter-transforms
 ``(P|ij) = TA^T (P|mu nu) TA`` followed by a triangular solve against the
 Cholesky factor of the metric and one Gram matmul - the direct analog of the
 reference's C++ ``transform_integral`` (eri_sparse_DF.cpp:739) with dense
@@ -220,13 +220,11 @@ class DFTensor:
         return eri.reshape(n, n, n, n)
 
 
-# Byte budget for the [chunk, nemb, nao] quarter-transform intermediate.
-# f64 on TPU is software-emulated: XLA's emulation turns each f64 buffer
-# into several f32 buffers and unrolls, multiplying the live footprint
-# ~6-8x -- a C40/etb factor (naux=3460, nao=282) materialised whole blew
-# 17.9 GB of a 15.75 GB v5e HBM.  64 MB of f64 intermediate keeps the
-# emulated program comfortably resident while the chunks stay large
-# enough (hundreds of aux rows) to saturate the MXU.
+# Byte budget for the [chunk, nemb, nao] quarter-transform intermediate:
+# above it the aux axis is scanned in chunks (hundreds of aux rows at
+# C40/etb scale, naux=3460, nao=282), which bounds the live footprint of
+# a vmapped bucket.  The value is kept until it is derived from the
+# device's memory and the operand shapes.
 _DF_CHUNK_BYTES = 64e6
 
 
@@ -234,11 +232,11 @@ _DF_CHUNK_BYTES = 64e6
 def df_fragment_eri(B, TA):
     """(ij|kl) for one fragment from the whitened DF factor.
 
-    B: [naux, nao, nao]; TA: [nao, nemb].  Two MXU matmul quarter
+    B: [naux, nao, nao]; TA: [nao, nemb].  Two GEMM quarter
     transforms + one Gram matmul (the dense analog of the reference's
     eri_sparse_DF.cpp:739 ``transform_integral``), aux-chunked with a
     ``lax.scan`` accumulation when the [naux, nemb, nao] intermediate
-    would pressure HBM.
+    would exceed ``_DF_CHUNK_BYTES``.
     """
     naux, nao, _ = B.shape
     nemb = TA.shape[1]
@@ -425,7 +423,7 @@ class StreamedDF:
             yield rows, B_blk
 
     def fragment_eri(self, TA: np.ndarray) -> np.ndarray:
-        """(ij|kl) accumulated over streamed row blocks (two MXU quarter
+        """(ij|kl) accumulated over streamed row blocks (two GEMM quarter
         transforms per block + one Gram matmul at the end)."""
         TA_j = jnp.asarray(TA)
         nemb = TA.shape[1]

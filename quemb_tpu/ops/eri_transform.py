@@ -1,6 +1,6 @@
 """AO -> embedding-basis integral transforms (reference mbe.py:1004 L4 layer).
 
-The in-core path is four successive MXU matmuls (quarter transforms) per
+The in-core path is four successive GEMMs (quarter transforms) per
 fragment, vmapped across buckets of fragments with equal embedding dimension.
 The DF path (P|mu nu) -> (P|ij) -> Cholesky Gram product lands in ops/df.py.
 """

@@ -101,11 +101,3 @@ def ao_reach_per_fragment(
     reach = S_abs @ np.abs(TA)
     return (reach >= eps).any(axis=1)
 
-
-def block_mask(reach: np.ndarray, block: int) -> np.ndarray:
-    """Collapse an AO reachability mask to contraction blocks of ``block``."""
-    nao = reach.shape[0]
-    nblk = -(-nao // block)
-    pad = np.zeros(nblk * block, dtype=bool)
-    pad[:nao] = reach
-    return pad.reshape(nblk, block).any(axis=1)

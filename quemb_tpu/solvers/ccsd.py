@@ -22,6 +22,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 # --------------------------------------------------- spin-orbital machinery
 def _spin_antisym(eri_mo, nmo: int):
@@ -169,9 +171,9 @@ def _solve_small_unrolled(A, b):
     """Fixed-size dense solve: fully unrolled Gauss elimination with
     partial pivoting, pure elementwise jax ops.
 
-    TPU-safe inside lax.while_loop bodies: f64 LU/eigh LAPACK-style custom
-    calls are unavailable or fault there, and an iteratively-refined eigh
-    is a ~10^3-op serial chain that dominated the loop-body wall time.
+    Safe inside lax.while_loop bodies on every backend: no LAPACK-style
+    custom call, and no iteratively-refined eigh (a ~10^3-op serial
+    chain) in the loop body.
     """
     n = A.shape[0]
     M = jnp.concatenate([A, b[:, None]], axis=1)
@@ -230,9 +232,8 @@ def _so_blocks_host(eri_mo, moe, nsocc: int):
     fused into the 2-D matrix layouts of :mod:`solvers.ccsd_mat`.
 
     Keeping the block construction out of the jitted iteration keeps the XLA
-    graph small (the in-graph [2n]^4 gather was dominating TPU compile time),
-    and the fused layouts avoid the TPU tile-padding memory blowup of small
-    trailing dimensions.
+    graph small (an in-graph [2n]^4 gather dominates compile time), and the
+    fused 2-D layouts avoid 4-D operands with small trailing dimensions.
     Returns (fused blocks dict, moe_o, moe_v).
     """
     eri_mo = np.asarray(eri_mo)
@@ -272,10 +273,9 @@ def _diis_stage(fb, moe_o, moe_v, t1_0, T2p_0, conv_tol, max_cycle,
                 f_blocks=None):
     """DIIS-accelerated amplitude iteration at the dtype of the inputs.
 
-    DIIS history lives in TPU-tile-friendly 2-D buffers ([m, no, nv] +
-    [m, no^2, nv^2], error history in f32): a flat [m, ntot] amplitude
-    buffer gets an XLA layout with ~3x (8,128) tile padding and OOMed HBM
-    at 4 vmap lanes.  Returns (t1, T2p, n_it, delta).
+    DIIS history lives in 2-D buffers ([m, no, nv] + [m, no^2, nv^2],
+    error history in f32, its Gram matrix at HIGHEST precision so that it
+    is never formed in TF32).  Returns (t1, T2p, n_it, delta).
     """
     from jax import lax
 
@@ -315,9 +315,9 @@ def _diis_stage(fb, moe_o, moe_v, t1_0, T2p_0, conv_tol, max_cycle,
             + jnp.sum(e2.astype(jnp.float64) ** 2)
         )
         # shift-append ring buffer (newest entry last): static slicing
-        # lowers to copies, whereas the dynamic-index scatter of
-        # buf.at[it % m] blew XLA's scoped-vmem budget once vmapped over
-        # fragments ("should not be possible to run out of scoped vmem")
+        # lowers to plain copies, where the dynamic-index scatter of
+        # buf.at[it % m] becomes a batched scatter once vmapped over
+        # fragments
         err1 = jnp.concatenate(
             [err1[1:], e1.astype(jnp.float32)[None]]
         )
@@ -329,8 +329,8 @@ def _diis_stage(fb, moe_o, moe_v, t1_0, T2p_0, conv_tol, max_cycle,
         # f32 error Gram matrix is plenty for acceleration coefficients;
         # the fixed-point update itself stays at the stage dtype.
         B = (
-            jnp.einsum("mij,nij->mn", err1, err1)
-            + jnp.einsum("mpq,npq->mn", err2, err2)
+            jnp.einsum("mij,nij->mn", err1, err1, precision=_HIGHEST)
+            + jnp.einsum("mpq,npq->mn", err2, err2, precision=_HIGHEST)
         ).astype(jnp.float64)
         c = _diis_coeffs(B, jnp.minimum(it + 1, m), newest_last=True)
         t1x = jnp.einsum("m,mij->ij", c.astype(dtype), amp1)
@@ -351,8 +351,9 @@ def _default_conv_tol() -> float:
 
     1e-9 is far tighter than the reference's effective setting (PySCF
     CCSD converges to conv_tol_normt=1e-5 amplitudes, cc/ccsd.py
-    defaults); 1e-7 keeps E_corr parity well below 1e-7 Ha while saving
-    emulated-f64 iterations on TPU.
+    defaults); 1e-7 keeps E_corr parity well below 1e-7 Ha with fewer
+    iterations.  Read at call time and passed to the jitted programs as
+    a static argument, so a changed setting compiles a new program.
     """
     import os as _os
 
@@ -365,10 +366,17 @@ def _ccsd_iterate(moe_o, moe_v, *fb_arrays, conv_tol=None, max_cycle=150,
     """Jitted CCSD iteration (DIIS inside lax.while_loop); vmappable.
 
     Uses the fused-matrix update of :mod:`solvers.ccsd_mat`.  With
-    ``mixed=True``, iterates in f32 to 3e-5 first (the TPU's native f64
-    matmul emulation runs at ~1/5 the f32 rate), then refines in f64 --
+    ``mixed=True``, iterates in f32 to 1e-5 first, then refines in f64 --
     the fixed point is dtype-exact, so the final amplitudes are full f64.
+    Every product runs at HIGHEST precision: an f32 stage means f32, not
+    TF32.
     """
+    with jax.default_matmul_precision("highest"):
+        return _ccsd_iterate_impl(moe_o, moe_v, fb_arrays, conv_tol,
+                                  max_cycle, mixed)
+
+
+def _ccsd_iterate_impl(moe_o, moe_v, fb_arrays, conv_tol, max_cycle, mixed):
     from quemb_tpu.solvers.ccsd_mat import BLOCK_KEYS
 
     if conv_tol is None:
@@ -387,8 +395,8 @@ def _ccsd_iterate(moe_o, moe_v, *fb_arrays, conv_tol=None, max_cycle=150,
     if mixed:
         import os as _os
 
-        # measured sweet spot on octane BE2 (v5e): looser f32 stages
-        # waste f64 steps, tighter ones stall at the f32 floor
+        # looser f32 stages waste f64 steps, tighter ones stall at the
+        # f32 floor
         f32_tol = float(_os.environ.get("QUEMB_TPU_CCSD_F32_TOL", "1e-5"))
         f32_max = int(_os.environ.get("QUEMB_TPU_CCSD_F32_MAX", "45"))
         fb32 = {k: v.astype(jnp.float32) for k, v in fb.items()}
@@ -440,7 +448,7 @@ def _anti_block(A, Ax):
     so the exchange <pq|sr> at [p,q,r,s] is Ax[p,q,s,r].  Returns the
     [2p,2q,2r,2s] spin-orbital <pq||rs> block in spin-major per-axis
     layout, built by broadcast spin-delta expansion (NO gathers -- the
-    in-graph [2n]^4 index gather dominated both TPU compile time and the
+    in-graph [2n]^4 index gather dominated both compile time and the
     host fallback).
     """
     I2 = jnp.eye(2)
@@ -488,21 +496,23 @@ def so_blocks_jax(eri_mo, moe, nsocc: int):
 
 
 def _use_mixed() -> bool:
-    """Mixed f32/f64 CCSD iterations by default on accelerators."""
+    """Mixed f32/f64 CCSD iterations: off unless QUEMB_TPU_CCSD_MIXED=1.
+
+    Every backend runs pure f64 by default; the f32 stage is kept as an
+    option until a measurement shows where it pays."""
     import os as _os
 
-    env = _os.environ.get("QUEMB_TPU_CCSD_MIXED", "")
-    if env:
-        return env.lower() in ("1", "true", "yes")
-    return jax.default_backend() != "cpu"
+    return _os.environ.get("QUEMB_TPU_CCSD_MIXED", "").lower() in (
+        "1", "true", "yes",
+    )
 
 
 def _f32_only() -> bool:
     """Capacity tier: run the whole CCSD in f32 (env
     QUEMB_TPU_CCSD_F32_ONLY=1).  The spin-orbital blocks are BUILT in
-    f32, halving peak HBM — the difference between fitting and OOM for
-    ~100-orbital embedding spaces (the vvvv block alone is 6 GB in f64
-    at nemb=101).  E_corr accuracy ~1e-5 relative, adequate for loose
+    f32, halving peak device memory — the difference between fitting and
+    running out for ~100-orbital embedding spaces (the vvvv block alone
+    is 6 GB in f64 at nemb=101).  E_corr accuracy ~1e-5 relative, adequate for loose
     parity targets and survey scans; leave off for production matching.
     """
     import os as _os
@@ -513,9 +523,10 @@ def _f32_only() -> bool:
 
 
 @partial(jax.jit, static_argnames=("nsocc", "max_cycle", "mixed",
-                                   "f32_only"))
+                                   "f32_only", "conv_tol"))
 def _ccsd_from_mo_batched(eri_mo_b, moe_b, nsocc: int, max_cycle: int = 150,
-                          mixed: bool = False, f32_only: bool = False):
+                          mixed: bool = False, f32_only: bool = False,
+                          conv_tol: float | None = None):
     """Fused device program: spin-block build + CCSD iterate, vmapped."""
 
     def one(eri_mo, moe):
@@ -534,7 +545,8 @@ def _ccsd_from_mo_batched(eri_mo_b, moe_b, nsocc: int, max_cycle: int = 150,
             return (t1f.astype(jnp.float64), T2pf.astype(jnp.float64),
                     it, delta.astype(jnp.float64))
         fb, mo, mv = so_blocks_jax(eri_mo, moe, nsocc)
-        return _ccsd_iterate(mo, mv, *fb, max_cycle=max_cycle, mixed=mixed)
+        return _ccsd_iterate(mo, mv, *fb, conv_tol=conv_tol,
+                             max_cycle=max_cycle, mixed=mixed)
 
     return jax.vmap(one)(eri_mo_b, moe_b)
 
@@ -544,10 +556,10 @@ def ccsd_so_large(eri_mo, moe, nsocc: int, max_cycle: int = 150):
     iteration only.
 
     The in-graph block build materializes broadcast intermediates that
-    OOM the chip beyond nemb ~ 90 (the [2,nv,2,nv,2,nv,2,nv] expansion
-    alone is several HBM-padded copies); building the fused blocks on
-    the host (125 GB RAM) and streaming them to the device caps HBM at
-    the iteration working set.  Honors QUEMB_TPU_CCSD_F32_ONLY.
+    exhaust device memory beyond nemb ~ 90 (the [2,nv,2,nv,2,nv,2,nv]
+    expansion alone is several copies); building the fused blocks on
+    the host and streaming them to the device caps device memory at the
+    iteration working set.  Honors QUEMB_TPU_CCSD_F32_ONLY.
     Returns spatial (t1, t2, n_iter, delta).
     """
     fb, mo, mv = _so_blocks_host(eri_mo, moe, nsocc)

@@ -3,9 +3,8 @@
 Mathematically identical to ``solvers/ccsd.py:_ccsd_update`` (SGWB
 equations), but every large contraction is expressed over fused composite
 indices - [no^2, nv^2] pair layouts and [no*nv, no*nv] ring layouts - so the
-XLA program is a short chain of MXU matmuls instead of ~35 4-D einsums.
-On TPU this removes the (8,128) tile-padding blowup of small trailing
-dimensions (which OOMed HBM) and cuts remote-compile time.
+XLA program is a short chain of 2-D GEMMs instead of ~35 4-D einsums
+with small trailing dimensions, which also cuts compile time.
 
 Block preparation (host side) fuses the antisymmetrized <pq||rs> slices into
 the exact 2-D operand layouts the update consumes.

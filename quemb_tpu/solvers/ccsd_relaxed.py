@@ -4,7 +4,8 @@ implicit differentiation.
 Replacement for the reference's ``relax_density=True`` path
 (molbe/solver.py:829 solve_ccsd -> pyscf ``mc.make_rdm1/make_rdm2`` with
 Lambda amplitudes).  Instead of hand-deriving the Lambda equations, the
-response densities are obtained TPU-natively from the defining property:
+response densities are obtained by automatic differentiation from the
+defining property:
 
     gamma1 = dE_elec / dh,     gamma2 = 2 dE_elec / d(eri)
 

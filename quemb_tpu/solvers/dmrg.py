@@ -4,7 +4,7 @@ molbe/solver.py:949).
 block2 is a CPU C++ package; like the reference (import inside the
 solver, gated by availability) this adapter activates only when
 ``pyblock2`` is importable and otherwise reports the optional
-dependency.  The TPU framework treats DMRG as a host-side specialty
+dependency.  The framework treats DMRG as a host-side specialty
 solver — the embedded Hamiltonians are small, so the cost model of the
 reference (one block2 run per fragment) carries over unchanged.
 """

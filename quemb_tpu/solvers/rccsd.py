@@ -15,8 +15,8 @@ g[p,q,r,s] = <pq|rs> (= chemist (pr|qs)); the driver converts from the
 chemist eri_mo produced by the MO transform.
 
 This module holds the plain-einsum form; :mod:`solvers.rccsd_mat` carries
-the TPU fused-matrix layout that the production path uses (tile-padding:
-4-D arrays with small trailing dims pad to (8,128) on TPU).
+the fused-matrix layout that the production path uses (2-D GEMM operands
+instead of 4-D einsums with small trailing dimensions).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import jax.numpy as jnp
 
 from quemb_tpu.solvers.ccsd import _f32_only, _use_mixed
 
-_PH = jax.lax.Precision.HIGHEST
+_PH = _HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _es(expr, *ops):
@@ -189,7 +189,8 @@ def _rdiis_stage(fb, moe_o, moe_v, t1_0, T2p_0, conv_tol, max_cycle):
     """DIIS-accelerated RCCSD amplitude iteration at the input dtype.
 
     Same ring-buffer design as :func:`solvers.ccsd._diis_stage` (shift-
-    append history, f32 error Gram, unrolled bordered solve), driving the
+    append history, f32 error Gram at HIGHEST precision, unrolled
+    bordered solve), driving the
     fused-matrix closed-shell update.  Returns (t1, T2p, n_it, delta).
     """
     from jax import lax
@@ -228,8 +229,8 @@ def _rdiis_stage(fb, moe_o, moe_v, t1_0, T2p_0, conv_tol, max_cycle):
         amp1 = jnp.concatenate([amp1[1:], t1n[None]])
         amp2 = jnp.concatenate([amp2[1:], T2n[None]])
         B = (
-            jnp.einsum("mij,nij->mn", err1, err1)
-            + jnp.einsum("mpq,npq->mn", err2, err2)
+            jnp.einsum("mij,nij->mn", err1, err1, precision=_HIGHEST)
+            + jnp.einsum("mpq,npq->mn", err2, err2, precision=_HIGHEST)
         ).astype(jnp.float64)
         c = _diis_coeffs(B, jnp.minimum(it + 1, m), newest_last=True)
         t1x = jnp.einsum("m,mij->ij", c.astype(dtype), amp1)
@@ -252,7 +253,16 @@ def _rccsd_iterate(moe_o, moe_v, *fb_arrays, conv_tol=None, max_cycle=150,
 
     With ``mixed=True`` a f32 stage runs to ~1e-5 first, then f64 refines
     (the fixed point is dtype-exact, so final amplitudes are full f64).
+    Every product runs at HIGHEST precision: an f32 stage means f32, not
+    TF32.
     """
+    with jax.default_matmul_precision("highest"):
+        return _rccsd_iterate_impl(moe_o, moe_v, fb_arrays, conv_tol,
+                                   max_cycle, mixed)
+
+
+def _rccsd_iterate_impl(moe_o, moe_v, fb_arrays, conv_tol, max_cycle,
+                        mixed):
     import os as _os
 
     from quemb_tpu.solvers.ccsd import _default_conv_tol
@@ -293,14 +303,17 @@ def _rccsd_iterate(moe_o, moe_v, *fb_arrays, conv_tol=None, max_cycle=150,
 
 
 @partial(jax.jit, static_argnames=("nsocc", "max_cycle", "mixed",
-                                   "f32_only"))
+                                   "f32_only", "conv_tol"))
 def _rccsd_from_mo_batched(eri_mo_b, moe_b, nsocc: int,
                            max_cycle: int = 150, mixed: bool = False,
-                           f32_only: bool = False):
+                           f32_only: bool = False,
+                           conv_tol: float | None = None):
     """Fused device program: fused-block build + RCCSD iterate, vmapped.
 
     Block prep is transposes/reshapes only (no gathers), so it fuses into
-    one program per bucket.  Returns spatial (t1_b, t2_b, it, delta).
+    one program per bucket.  ``conv_tol`` (static; None reads
+    :func:`solvers.ccsd._default_conv_tol` while tracing) is the f64
+    amplitude target.  Returns spatial (t1_b, t2_b, it, delta).
     """
     import os as _os
 
@@ -323,7 +336,7 @@ def _rccsd_from_mo_batched(eri_mo_b, moe_b, nsocc: int,
         fb = rccsd_fused_blocks(eri_mo, nsocc)
         return _rccsd_iterate(
             moe[:nsocc], moe[nsocc:], *[fb[k] for k in RBLOCK_KEYS],
-            max_cycle=max_cycle, mixed=mixed,
+            conv_tol=conv_tol, max_cycle=max_cycle, mixed=mixed,
         )
 
     return jax.vmap(one)(eri_mo_b, moe_b)
@@ -333,11 +346,13 @@ def rccsd_batched(eri_mo_b, moe_b, nsocc: int):
     """Batched closed-shell CCSD over a bucket (fragment axis sharded
     over the active mesh).  Returns spatial (t1_b, t2_b, it, delta)."""
     from quemb_tpu.parallel.mesh import shard_batch
+    from quemb_tpu.solvers.ccsd import _default_conv_tol
 
     eri_sh, _ = shard_batch(np.asarray(eri_mo_b))
     moe_sh, _ = shard_batch(np.asarray(moe_b))
     return _rccsd_from_mo_batched(
-        eri_sh, moe_sh, nsocc, mixed=_use_mixed(), f32_only=_f32_only()
+        eri_sh, moe_sh, nsocc, mixed=_use_mixed(), f32_only=_f32_only(),
+        conv_tol=_default_conv_tol(),
     )
 
 
@@ -348,9 +363,12 @@ def rccsd_large(eri_mo, moe, nsocc: int, max_cycle: int = 150):
     fused spatial blocks are ~16x smaller, so the whole program runs
     on-device even for nemb ~ 100.  Returns (t1, t2, n_iter, delta).
     """
+    from quemb_tpu.solvers.ccsd import _default_conv_tol
+
     t1f, t2f, it, delta = _rccsd_from_mo_batched(
         jnp.asarray(eri_mo)[None], jnp.asarray(moe)[None], nsocc,
         max_cycle=max_cycle, mixed=_use_mixed(), f32_only=_f32_only(),
+        conv_tol=_default_conv_tol(),
     )
     return (np.asarray(t1f[0], np.float64),
             np.asarray(t2f[0], np.float64), int(it[0]), float(delta[0]))

@@ -1,11 +1,10 @@
-"""Fused-matrix closed-shell RCCSD update (TPU production layout).
+"""Fused-matrix closed-shell RCCSD update (the production layout).
 
 Mathematically identical to :func:`solvers.rccsd.rccsd_update` (verified to
 1e-12 in tests/test_rccsd.py), but every contraction runs over fused
 composite indices -- [no^2, nv^2] pair layouts and [no*nv, no*nv] ring
-layouts -- so the XLA program is a chain of MXU matmuls with TPU-friendly
-(8,128)-tileable operands instead of 4-D einsums whose small trailing
-dimensions pad by up to ~6x.  Same design as :mod:`solvers.ccsd_mat` for
+layouts -- so the XLA program is a chain of 2-D GEMMs instead of 4-D
+einsums with small trailing dimensions.  Same design as :mod:`solvers.ccsd_mat` for
 the spin-orbital path, at 1/4 the operand sizes and ~1/8-1/16 the FLOPs
 (reference runs the analogous closed-shell kernel via PySCF,
 molbe/solver.py:829).

@@ -1,6 +1,6 @@
 """Unrestricted bootstrap embedding (one-shot UBE-UCCSD).
 
-Mirror of the reference ``molbe/ube.py`` (UBE class) on the TPU-native
+Mirror of the reference ``molbe/ube.py`` (UBE class) on the device-batched
 stack: spin-separated Schmidt spaces, three spin ERI blocks per fragment,
 per-spin-channel fragment SCFs, and a generalized spin-orbital UCCSD.
 """

@@ -269,7 +269,7 @@ def test_sparse_df_banded_pair_screen():
     """Banded pair-screened transform == dense DF within the screen bound.
 
     The geometric AO-pair screen (reference _get_AO_per_AO,
-    eri_sparse_DF.py:227) keeps O(N) pairs on extended systems; the TPU
+    eri_sparse_DF.py:227) keeps O(N) pairs on extended systems; the device
     formulation RCM-orders the AOs into a fixed-width band and runs the
     first quarter transform as a batched band GEMM
     (sparse_df._banded_eri_bucket).  On an H64 chain the band is half
@@ -331,7 +331,7 @@ def test_sparse_df_from_factor_matches_constructor():
 
 def test_sparse_df_from_factor_f32_widen_device_upload():
     """device_upload="f32-widen" ships the factor to the device as f32
-    and widens on-chip; host and device copies must stay bit-equal
+    and widens it there; host and device copies must stay bit-equal
     (self.dft.B is widened identically) so the banded and union paths
     agree with a host-side reference transform of the SAME quantized
     factor to f64 machine precision."""
@@ -362,7 +362,7 @@ def test_sparse_df_from_factor_f32_widen_device_upload():
 
 def test_df_fragment_eri_aux_chunked_matches_whole():
     """The aux-chunked scan path (taken when the [naux, nemb, nao]
-    intermediate would pressure HBM -- the C40 chain demo regime) is
+    intermediate exceeds _DF_CHUNK_BYTES -- the C40 chain regime) is
     bit-identical to the whole-factor quarter transform."""
     import jax
 

@@ -12,36 +12,15 @@ import numpy as np
 import pytest
 
 from quemb_tpu import BE, fragmentate
-from quemb_tpu.chem.mole import Mole
-from quemb_tpu.chem.scf import RHF
-
-from conftest import DATA_DIR
 
 EXPENSIVE = os.getenv("QUEMB_TPU_EXPENSIVE_TESTS") == "true"
 
 
 @pytest.fixture(scope="module")
 def octane_mf():
-    mol = Mole.from_xyz_file(
-        os.path.join(DATA_DIR, "xyz", "octane.xyz"), basis="sto-3g"
-    )
-    mf = RHF(mol, conv_tol=1e-12)
-    fixture = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "fixtures", "octane_sto3g_hf.npz",
-    )
-    if os.path.exists(fixture):
-        from quemb_tpu.utils.eri_pack import unpack_eri_s8
+    from quemb_tpu.utils.fixtures import octane_sto3g_rhf
 
-        d = np.load(fixture)
-        mf._hcore, mf._S = d["hcore"], d["S"]
-        mf._eri = unpack_eri_s8(d["eri_s8"], int(d["nao"]))
-        mf.mo_coeff, mf.mo_energy = d["C"], d["moe"]
-        mf.e_tot = float(d["e_tot"])
-        mf.converged = True
-    else:
-        mf.kernel()
-    return mol, mf
+    return octane_sto3g_rhf()
 
 
 def test_octane_hf(octane_mf):
@@ -66,8 +45,7 @@ def test_octane_be2_ccsd_density_matching(octane_mf):
     )
     mybe = BE(mf, fobj)
     mybe.optimize(solver="CCSD", only_chem=False)
-    # north-star tolerance: on the TPU this run takes ~5 min and matched
-    # the reference to 1.9e-7 Ha (2026-08-16); 1e-6 is the recorded bar
+    # north-star tolerance: 1e-6 Ha is the recorded bar
     assert np.isclose(mybe.ebe_tot, -310.3347211309688, atol=1e-6)
     assert np.isclose(
         mybe.ebe_tot - mybe.ebe_hf, -0.5499514850769742, atol=1e-6
@@ -78,9 +56,7 @@ def test_octane_be2_ccsd_density_matching(octane_mf):
 def test_octane_be2_frozen_core_rdms(octane_mf):
     """Frozen-core BE2-CCSD + full-basis RDM reassembly (reference
     molbe_octane_get_rdms_test.py: E_tot -310.3311676424482, unchanged
-    after compute_energy_full at np.isclose tolerance).  Measured on one
-    TPU v5e 2026-08-16: matched E_tot -310.3311677809 (1.4e-7 from the
-    reference), reassembled approx-cumulant total within 1.7e-5."""
+    after compute_energy_full at np.isclose tolerance)."""
     mol, mf = octane_mf
     fobj = fragmentate(
         mol=mol, n_BE=2, frag_type="chemgen", frozen_core=True,

@@ -3,7 +3,7 @@
 Three-layer verification of the production CCSD kernel:
 1. the spin-summed einsum update reproduces the spin-orbital SGWB update
    (``solvers/ccsd.py:_ccsd_update``) exactly on random amplitudes,
-2. the fused-matrix TPU layout (``solvers/rccsd_mat.py``) reproduces the
+2. the fused-matrix layout (``solvers/rccsd_mat.py``) reproduces the
    einsum form exactly,
 3. the converged solver matches the spin-orbital kernel and FCI on small
    molecules (reference parity target: pyscf.cc.CCSD, used by

@@ -255,9 +255,9 @@ def test_bucket_merge_padding_exact(monkeypatch):
 
 def test_eigh_deflates_pad_sentinels(monkeypatch):
     """The fragment-SCF eigh must never see the +-1e6 bucket-merge pad
-    sentinels (dispatch._PAD_SHIFT): the TPU backend eigh is ~1e-7
-    RELATIVE, so sentinel-scale norms destroy the physical eigenvectors
-    (observed as a 1.7e-2 Ha oneshot error on the octane bench).
+    sentinels (dispatch._PAD_SHIFT): with a backend eigh of ~1e-7
+    RELATIVE accuracy, sentinel-scale norms destroy the physical
+    eigenvectors (a 1.7e-2 Ha oneshot error on octane).
     _eigh_deflated must (a) pass a physical-scale matrix to the backend,
     (b) reproduce the unpadded block's eigenpairs exactly, (c) keep
     occupied pads below and virtual pads above every physical orbital."""
